@@ -54,7 +54,7 @@ def run_dashboard(sim_dir: str):
     from pednstream_tpu.io import OutputHandler
     from pednstream_tpu.viz import NetworkVisualizer
 
-    st.set_page_config(page_title="PedNStream-TPU dashboard", layout="wide")
+    st.set_page_config(page_title="PedNStream dashboard", layout="wide")
     st.title("Pedestrian network simulation")
 
     data = OutputHandler.load_simulation(sim_dir)

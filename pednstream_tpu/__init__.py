@@ -1,11 +1,11 @@
-"""pednstream_tpu — a TPU-native pedestrian Link Transmission Model framework.
+"""pednstream_tpu — a JAX pedestrian Link Transmission Model framework.
 
-A ground-up JAX/XLA rebuild of the capabilities of WaimenMak/PedNStream
-(reference studied at /root/reference): the per-timestep object-graph
+A ground-up JAX/XLA rebuild of the capabilities of WaimenMak/PedNStream:
+the per-timestep object-graph
 ``network_loading(t)`` loop becomes a pure ``step(state, t) -> state``
 function over struct-of-arrays state, run with ``lax.scan`` over time and
-``vmap`` over environment replicas, with ``shard_map`` sharding across a
-TPU mesh for batched RL training.
+``vmap`` over environment replicas, with ``jax.sharding`` across a
+device mesh for batched rollouts and training.
 
 Layer map (mirrors reference SURVEY.md §1):
   L1 core engine   : pednstream_tpu.engine / .fd / .state

@@ -10,7 +10,8 @@ assign_flows_type?, seed?, path_finder?}``, ``default_link``, optional
 from typing import Any, Dict
 
 import numpy as np
-import yaml
+
+from .yaml_reader import safe_load
 
 
 def grid_adjacency(rows: int, cols: int) -> np.ndarray:
@@ -35,7 +36,7 @@ def load_config(config_path: str) -> dict:
     plus optional 'adjacency_matrix' and 'od_flows' ({(o, d): flow}).
     """
     with open(config_path, "r") as f:
-        config = yaml.safe_load(f)
+        config = safe_load(f)
 
     path_finder_params = config["simulation"].get("path_finder", {})
 

@@ -1,4 +1,4 @@
-"""The TPU-native LTM engine: one pure step function, vectorized over links
+"""The LTM engine: one pure step function, vectorized over links
 and nodes, scanned over time.
 
 Semantics re-derived from the reference hot loop (SURVEY.md §3.2):
@@ -39,6 +39,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .ops.division import div
 from .routing import turning_fractions_step
 from .state import EngineParams, NetworkState, StepOutputs
 
@@ -46,11 +47,10 @@ from .state import EngineParams, NetworkState, StepOutputs
 def _ring_read(ring: jnp.ndarray, time_idx: jnp.ndarray, H: int) -> jnp.ndarray:
     """Read per-link ring values at (possibly per-link) time indices.
 
-    Rings are time-major [H, E] (see ops/ncurve.py for the layout
-    rationale).  TPU gathers with per-lane dynamic indices serialize to
-    scalar loads (~20ns/element — this was 77% of engine runtime), so the
+    Rings are time-major [H, E] (see ops/ncurve.py for the layout).  The
     per-link read is expressed as a one-hot masked reduction over the
-    window axis: a fused VPU multiply+reduce at full memory bandwidth.
+    window axis, which XLA fuses into one pass over the ring (whether a
+    gather reads faster on the GPU is an open ROADMAP item).
     Negative time indices read as 0 for free (the mask of an out-of-range
     index is all zeros).  Adding the zero lanes is IEEE-exact (x + 0.0 ==
     x for the non-negative finite values stored here), so golden parity
@@ -71,11 +71,10 @@ def _make_rev(scn):
 
     Topology stores each corridor's two directed links adjacently
     (topology.py: reverse_idx == e ^ 1 by construction), so the reverse
-    read is an even/odd lane swap.  A per-lane gather — even with
-    compile-time-constant indices — is emitted as a serialized load loop
-    inside TPU fusions; the shift+select form is three vectorizable ops
-    and bit-identical (a pure permutation).  Falls back to the gather if
-    a custom topology ever breaks the pairing.
+    read is an even/odd lane swap: two shifts and a select that fuse
+    into their consumers, bit-identical to the gather (a pure
+    permutation).  Falls back to the gather if a custom topology ever
+    breaks the pairing.
     """
     rev = np.asarray(scn.reverse_idx)
     E = rev.shape[0]
@@ -91,15 +90,19 @@ def _make_rev(scn):
 
 
 def _nofma(scn, x):
-    """Block XLA FP contraction (mul+add -> FMA) in exact-parity mode.
+    """Block FP contraction (mul+add -> FMA) in exact-parity mode.
 
-    Inside large fused kernels LLVM may contract ``a*b + c`` into an FMA,
-    changing the last-ulp rounding vs NumPy's two-rounding evaluation.
-    Because the engine floors/rounds flows at integer boundaries, a 1-ulp
-    difference flips whole pedestrians.  An optimization_barrier on the
-    products keeps the add un-contracted.  No-op on the fast path."""
+    Inside fused kernels LLVM contracts ``a*b + c`` into an FMA wherever
+    the target has one (GPUs, and CPUs from AVX2 on), changing the
+    last-ulp rounding vs NumPy's two-rounding evaluation.  Because the
+    engine floors/rounds flows at integer boundaries, a 1-ulp difference
+    flips whole pedestrians.  Routing each product through a select
+    (``x`` where ``x == x``, which keeps finite values as they are)
+    leaves no multiply feeding the add directly, so nothing contracts.
+    An ``optimization_barrier`` does not do this: XLA drops it before
+    code generation.  No-op on the fast path."""
     if getattr(scn, "exact_parity", False):
-        return jax.lax.optimization_barrier(x)
+        return jnp.where(x == x, x, jnp.zeros_like(x))
     return x
 
 
@@ -112,11 +115,10 @@ def _binom(key, n, p, stochastic: bool, mode: str = "exact"):
     floor(n) * p.
 
     mode='exact' uses jax.random.binomial (transformed rejection — exact
-    but costs ~64% of the stochastic step at scale).  mode='fast' is a
+    but the costliest stage of the stochastic step).  mode='fast' is a
     hybrid sampler: exact inverse-CDF sampling for n <= 16 (one uniform
-    draw, the binomial pmf walked by its term recursion — profiling
-    showed the earlier 16-trial Bernoulli-sum spent ~30% of the whole
-    engine step generating 16x the random bits), Gaussian approximation
+    draw, the binomial pmf walked by its term recursion, instead of 16
+    Bernoulli trials' worth of random bits), Gaussian approximation
     with rounding and [0, n] clipping beyond (a standard approximation:
     for n > 16 and the p in [0.5, 0.9] used here the normal
     approximation's total-variation error is small).  Validated
@@ -133,7 +135,7 @@ def _binom(key, n, p, stochastic: bool, mode: str = "exact"):
     f32 = jnp.float32
     u = jax.random.uniform(k1, nf.shape, dtype=f32)
     q = f32(1.0) - pc.astype(f32)
-    ratio = pc.astype(f32) / jnp.maximum(q, f32(1e-12))
+    ratio = div(pc.astype(f32), jnp.maximum(q, f32(1e-12)))
     nf32 = nf.astype(f32)
     pmf = q**nf32  # P[X = 0]
     cdf = pmf
@@ -141,7 +143,9 @@ def _binom(key, n, p, stochastic: bool, mode: str = "exact"):
     for k in range(K):
         # u >= P[X <= k]  =>  the sample exceeds k
         cnt = cnt + jnp.where((u >= cdf) & (k < nf32), f32(1.0), f32(0.0))
-        pmf = pmf * ((nf32 - k) / f32(k + 1.0)) * ratio
+        # times the constant 1/(k+1): a product rounds the same on
+        # every backend, and costs less than a corrected quotient
+        pmf = pmf * ((nf32 - k) * f32(1.0 / (k + 1.0))) * ratio
         pmf = jnp.where(k + 1.0 <= nf32, pmf, f32(0.0))
         cdf = cdf + pmf
     small = cnt.astype(n.dtype)
@@ -152,53 +156,7 @@ def _binom(key, n, p, stochastic: bool, mode: str = "exact"):
     return jnp.where(nf <= K, small, gauss)
 
 
-def _lookback_state(scn, ep: EngineParams, st: NetworkState, t):
-    """Shared per-step lookback quantities: the dynamic N-curve tau
-    (link.py:260, windowed-mode clamped), the diffusion coefficients
-    (link.py:199-214), and the shockwave lookback (link.py:380,
-    windowed-mode clamped) — used by both the XLA one-hot path and the
-    fused Pallas path."""
-    f32 = jnp.float32
-    windowed = scn.H < scn.simulation_steps + 1
-    avg_tt = st.avg_tt
-    tau = jnp.round(avg_tt / scn.unit_time).astype(jnp.int32)  # link.py:260
-    if windowed:
-        # windowed-history mode: bound the N-curve lookback to the ring
-        tau = jnp.minimum(tau, scn.H - 6)
-    F = f32(1.0) / (f32(1.0) + ep.gamma.astype(f32) * avg_tt)
-    one_m_f = f32(1.0) - F
-    coefs = jnp.stack([F, F * one_m_f, F * one_m_f**2, F * one_m_f**3], axis=0)
-    tau_shock = ep.tau_shockwave
-    if windowed:
-        # the shockwave lookback must stay inside the ring or the read
-        # wraps to a value from ~t-(tau mod H) — far too recent —
-        # silently inflating receiving flows and weakening jam
-        # spillback.  Clamping to H-1 (the oldest retained slot) is part
-        # of the windowed-mode approximation, like the avg-tt tau clamp;
-        # tests/test_golden_parity.py quantifies the error.
-        tau_shock = jnp.minimum(tau_shock, scn.H - 1)
-    return tau, coefs, tau_shock
-
-
-def _fused_hist(scn, ep, st, t):
-    """All three ring reductions in one Pallas pass (ops/ncurve.py)."""
-    from .ops import fused_history_reads
-
-    tau, coefs, tau_shock = _lookback_state(scn, ep, st, t)
-    idx_ci = jnp.maximum(0, t - tau)  # = ts + 1 - tau (link.py:274-288)
-    base = t - 1 - tau  # diffusion lag base (link.py:210-212)
-    idx_co = jnp.maximum(t - tau_shock, 0)
-    ci, co, diff = fused_history_reads(
-        st.cum_in_ring, st.cum_out_ring, st.inflow_ring,
-        idx_ci, idx_co, base, coefs.astype(st.inflow_ring.dtype), scn.H,
-        interpret=getattr(scn, "pallas_interpret", False),
-    )
-    return {"tau": tau, "tau_shock": tau_shock, "ci": ci, "co": co,
-            "diff": diff}
-
-
-def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
-                   hist=None):
+def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic):
     """Vectorized Link.cal_sending_flow(t-1) over all directed links
     (link.py:216-370).
 
@@ -221,26 +179,21 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
     # get_density(ts): shared bidirectional for Link (link.py:190-197),
     # stored own density for Separator (link.py:427-428)
     shared_density32 = jnp.where(
-        scn.is_separator, st.density, (num_peds32 + rev(num_peds32)) / area32
+        scn.is_separator, st.density, div(num_peds32 + rev(num_peds32), area32)
     )
     own_density32 = st.density
 
     avg_tt = st.avg_tt  # float32, value at ts
-    if hist is not None:
-        tau = hist["tau"]
-    else:
-        tau = jnp.round(avg_tt / dt).astype(jnp.int32)  # link.py:260
-        if scn.H < scn.simulation_steps + 1:
-            # windowed-history mode: bound the N-curve lookback to the ring
-            tau = jnp.minimum(tau, scn.H - 6)
+    tau = jnp.round(div(avg_tt, dt)).astype(jnp.int32)  # link.py:260
+    if scn.H < scn.simulation_steps + 1:
+        # windowed-history mode: bound the N-curve lookback to the ring
+        tau = jnp.minimum(tau, scn.H - 6)
 
     early = ts < ep.free_flow_tau  # link.py:267-269
 
     # free-flow / congestion blended N-curve boundary (link.py:274-288)
     diff_fused = None
-    if hist is not None:
-        cum_in_at = hist["ci"]
-    elif not getattr(scn, "exact_parity", False) and stochastic:
+    if not getattr(scn, "exact_parity", False) and stochastic:
         # fast path: boundary + all 4 diffusion taps from ONE pass over
         # the cum_in ring (inflow[s] = cum_in[s] - cum_in[s-1] — exact
         # for the integer-valued flows of stochastic mode below 2**24;
@@ -248,7 +201,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
         # cum_in, so it reads the inflow ring directly below instead)
         from .ops import boundary_and_diffusion_reads
 
-        F = f32(1.0) / (f32(1.0) + ep.gamma.astype(f32) * avg_tt)
+        F = div(f32(1.0), f32(1.0) + ep.gamma.astype(f32) * avg_tt)
         one_m_f = f32(1.0) - F
         coefs = jnp.stack(
             [F, F * one_m_f, F * one_m_f**2, F * one_m_f**3], axis=0
@@ -261,8 +214,8 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
         idx = jnp.maximum(0, t - tau)  # = ts + 1 - tau
         cum_in_at = _ring_read(st.cum_in_ring, idx, scn.H)
     cf32 = jnp.clip(
-        (own_density32 - ep.k_critical.astype(f32))
-        / (ep.k_jam - ep.k_critical).astype(f32),
+        div(own_density32 - ep.k_critical.astype(f32),
+            (ep.k_jam - ep.k_critical).astype(f32)),
         0.0,
         1.0,
     )
@@ -277,7 +230,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
     original = sending
 
     # stochastic release mitigation (link.py:309-346); factors in f32
-    releasing_factor32 = jnp.clip(shared_density32 / ep.k_jam.astype(f32), 0.0, 1.0)
+    releasing_factor32 = jnp.clip(div(shared_density32, ep.k_jam.astype(f32)), 0.0, 1.0)
     releasing_prob32 = f32(0.7) + _nofma(
         scn, f32(0.15) * releasing_factor32 ** f32(0.8)
     )  # exponent=0.8, link.py:80
@@ -285,9 +238,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
     # diffusion outflow, 4 lagged inflows (get_outflow, link.py:199-214);
     # F is f32 (gamma * avg_tt_f32), lag terms accumulate left-to-right in
     # the flow dtype as in the reference expression (link.py:210-212)
-    if hist is not None:
-        diff_raw = hist["diff"]
-    elif diff_fused is not None:
+    if diff_fused is not None:
         diff_raw = diff_fused
     elif not getattr(scn, "exact_parity", False):
         # deterministic fast path: one weighted pass over the inflow
@@ -295,7 +246,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
         # above is only ulp-exact for integer flows)
         from .ops import diffusion_single_pass
 
-        F = f32(1.0) / (f32(1.0) + ep.gamma.astype(f32) * avg_tt)
+        F = div(f32(1.0), f32(1.0) + ep.gamma.astype(f32) * avg_tt)
         one_m_f = f32(1.0) - F
         coefs = jnp.stack(
             [F, F * one_m_f, F * one_m_f**2, F * one_m_f**3], axis=0
@@ -304,7 +255,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
     else:
         # exact-parity: reference summation order (link.py:210-212), 4
         # separate inflow-ring reads
-        F = f32(1.0) / (f32(1.0) + _nofma(scn, ep.gamma.astype(f32) * avg_tt))
+        F = div(f32(1.0), f32(1.0) + _nofma(scn, ep.gamma.astype(f32) * avg_tt))
         base = ts - tau
         one_m_f = f32(1.0) - F
         infl = [_ring_read(st.inflow_ring, base - k, scn.H) for k in range(4)]
@@ -356,7 +307,7 @@ def _sending_flows(scn, ep: EngineParams, st: NetworkState, t, keys, stochastic,
 
 
 def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, S, key, stochastic,
-                     hist=None, tau_shock_np=None):
+                     tau_shock_np=None):
     """Vectorized cal_receiving_flow(_with_reverse) (link.py:372-416) and
     the Separator variant (link.py:480-512).
 
@@ -373,42 +324,44 @@ def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, S, key, stochas
     )
     num_peds = st.num_peds.astype(f)
 
-    if hist is not None:
-        tau_shock = hist["tau_shock"]
-        cum_out_at = hist["co"]
-    else:
-        windowed = scn.H < scn.simulation_steps + 1
-        tau_np = None
-        if not getattr(scn, "exact_parity", False) and tau_shock_np is not None:
-            # tau_shockwave is a compile-time constant (the common case —
-            # it only becomes traced under per-replica domain
-            # randomization).  When it takes few distinct values, replace
-            # the full-ring one-hot reduction with one cheap whole-row
-            # read per distinct lookback: D*E bytes instead of H*E.  On a
-            # uniform-length network (D == 1) this removes a third of the
-            # engine's ring bandwidth outright.
-            tau_np = tau_shock_np
-            if windowed:
-                tau_np = np.minimum(tau_np, scn.H - 1)
-            uniq = np.unique(tau_np)
-        if tau_np is not None and len(uniq) <= max(4, scn.H // 8):
-            tau_shock = jnp.asarray(tau_np)
-            cum_out_at = jnp.zeros_like(st.cum_out)
-            for v in uniq.tolist():
-                row = jax.lax.dynamic_index_in_dim(
-                    st.cum_out_ring,
-                    jnp.mod(jnp.maximum(t - int(v), 0), scn.H),
-                    axis=0, keepdims=False,
-                )
-                cum_out_at = jnp.where(jnp.asarray(tau_np == int(v)), row, cum_out_at)
-        else:
-            tau_shock = ep.tau_shockwave
-            if windowed:
-                # windowed-mode clamp; see _lookback_state for rationale
-                tau_shock = jnp.minimum(tau_shock, scn.H - 1)
-            cum_out_at = _ring_read(
-                st.cum_out_ring, jnp.maximum(t - tau_shock, 0), scn.H
+    windowed = scn.H < scn.simulation_steps + 1
+    tau_np = None
+    if not getattr(scn, "exact_parity", False) and tau_shock_np is not None:
+        # tau_shockwave is a compile-time constant (the common case —
+        # it only becomes traced under per-replica domain
+        # randomization).  When it takes few distinct values, replace
+        # the full-ring one-hot reduction with one cheap whole-row
+        # read per distinct lookback: D*E bytes instead of H*E.  On a
+        # uniform-length network (D == 1) this removes a third of the
+        # engine's ring bandwidth outright.
+        tau_np = tau_shock_np
+        if windowed:
+            tau_np = np.minimum(tau_np, scn.H - 1)
+        uniq = np.unique(tau_np)
+    if tau_np is not None and len(uniq) <= max(4, scn.H // 8):
+        tau_shock = jnp.asarray(tau_np)
+        cum_out_at = jnp.zeros_like(st.cum_out)
+        for v in uniq.tolist():
+            row = jax.lax.dynamic_index_in_dim(
+                st.cum_out_ring,
+                jnp.mod(jnp.maximum(t - int(v), 0), scn.H),
+                axis=0, keepdims=False,
             )
+            cum_out_at = jnp.where(jnp.asarray(tau_np == int(v)), row, cum_out_at)
+    else:
+        tau_shock = ep.tau_shockwave
+        if windowed:
+            # the shockwave lookback must stay inside the ring or the
+            # read wraps to a value from ~t-(tau mod H) — far too recent
+            # — silently inflating receiving flows and weakening jam
+            # spillback.  Clamping to H-1 (the oldest retained slot) is
+            # part of the windowed-mode approximation, like the avg-tt
+            # tau clamp in _sending_flows; tests/test_golden_parity.py
+            # quantifies the error.
+            tau_shock = jnp.minimum(tau_shock, scn.H - 1)
+        cum_out_at = _ring_read(
+            st.cum_out_ring, jnp.maximum(t - tau_shock, 0), scn.H
+        )
     early = (t - tau_shock) < 0  # ts + 1 - tau_shockwave < 0
 
     rev_rand = _binom(key, rev(num_peds), 0.9, stochastic,
@@ -443,12 +396,20 @@ def _receiving_flows(scn, ep: EngineParams, st: NetworkState, t, S, key, stochas
     return R
 
 
-def _classic_solve(dem_mat, r_pad):
+def _classic_solve(dem_mat, r_pad, exact: bool):
     """'classic' proportional supply allocation (node.py:272-300) over an
-    arbitrary leading node axis: dem_mat [K, M, M], r_pad [K, M]."""
+    arbitrary leading node axis: dem_mat [K, M, M], r_pad [K, M].
+
+    Exact-parity mode divides every demand by its column sum, as the
+    reference does.  The fast path scales each column by one correctly
+    rounded reciprocal: M times fewer quotients over the largest array
+    of the step, and products round the same on every backend."""
     col_sums = dem_mat.sum(axis=1, keepdims=True)  # [K, 1, M]
-    share = dem_mat / jnp.where(col_sums != 0, col_sums, 1e-5)
-    supply = r_pad[:, None, :] * share
+    col_sums = jnp.where(col_sums != 0, col_sums, 1e-5)
+    if exact:
+        supply = r_pad[:, None, :] * div(dem_mat, col_sums)
+    else:
+        supply = dem_mat * (r_pad[:, None, :] * div(1.0, col_sums))
     g = jnp.floor(jnp.minimum(dem_mat, supply))
     q_in = jnp.maximum(0.0, g.sum(axis=2))  # outflow of incoming slot i
     q_out = jnp.maximum(0.0, g.sum(axis=1))  # inflow to outgoing slot j
@@ -513,13 +474,14 @@ def _node_solve(scn, ep: EngineParams, st: NetworkState, t, S, R, phi, phi_c=Non
         )
     else:
         # --- classic RegularNode solve (node.py:272-300) ---
-        q_in_reg, q_out_reg = _classic_solve(phi * s_pad[:, :, None], r_pad)
+        exact = getattr(scn, "exact_parity", False)
+        q_in_reg, q_out_reg = _classic_solve(phi * s_pad[:, :, None], r_pad, exact)
         if phi_c is not None:
             # re-solve the routed rows on their compact dynamic phi and
             # overwrite (static sorted unique ids -> cheap batched scatter)
             ids = scn.routing.routed_ids
             q_in_c, q_out_c = _classic_solve(phi_c * s_pad[ids][:, :, None],
-                                             r_pad[ids])
+                                             r_pad[ids], exact)
             q_in_reg = q_in_reg.at[ids].set(q_in_c)
             q_out_reg = q_out_reg.at[ids].set(q_out_c)
 
@@ -558,7 +520,7 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t, inflow_e, ou
 
     num_peds = (st.num_peds.astype(f) + (inflow_e - outflow_e)).astype(f32)
     area = jnp.where(scn.is_separator, ep.length * st.sep_width, ep.length * ep.width)
-    density = num_peds / area.astype(f32)  # f32 division (link.py:136)
+    density = div(num_peds, area.astype(f32))  # f32 division (link.py:136)
 
     # FD speed in f32 staging (update_speeds, link.py:141-188)
     k_self = density
@@ -583,7 +545,7 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t, inflow_e, ou
     ff_exact = (k_eff <= kc32) & (scn.fd_type != FD_TYPES["smulders"])
     if stochastic:
         ff_exact = ff_exact & (ep.speed_noise_std <= 0)
-    tt_f32div = ep.length.astype(f32) / jnp.where(v > 0, v, f32(1.0))
+    tt_f32div = div(ep.length.astype(f32), jnp.where(v > 0, v, f32(1.0)))
     travel_time = jnp.where(
         v > 0,
         jnp.where(ff_exact, ep.tt_freeflow32, tt_f32div),
@@ -595,7 +557,7 @@ def _update_link_states(scn, ep: EngineParams, st: NetworkState, t, inflow_e, ou
     run_sum = st.tt_run_sum + travel_time
     old = _ring_read(st.tt_ring, jnp.maximum(t - W, 0), W)
     run_sum = jnp.where(t >= W, run_sum - old, run_sum)
-    avg_tt = jnp.where(t >= W, run_sum / W, ep.travel_time0)
+    avg_tt = jnp.where(t >= W, div(run_sum, W), ep.travel_time0)
     tt_ring = st.tt_ring.at[t % W].set(travel_time)
 
     return num_peds, density, speed, travel_time, link_flow, avg_tt, run_sum, tt_ring
@@ -609,8 +571,8 @@ def step_fn(scn, ep: EngineParams, st: NetworkState, stochastic: bool = False,
     t_shared: optional scalar time index shared across a lockstep batch.
     When ``step_fn`` is vmapped, ``st.t`` is per-replica, so the ring-row
     writes ``ring.at[t % H].set(x)`` batch into scatters and the
-    ``od_table[:, t]`` read into a gather — on TPU these were ~25% of
-    the batched step.  Passing the (identical) time as an UNBATCHED
+    ``od_table[:, t]`` read into a gather.  Passing the (identical) time
+    as an UNBATCHED
     scalar closed over by the vmap turns them back into single
     dynamic-(update-)slices.  Batched lockstep callers do
     ``t0 = states.t[0]`` outside the vmap and pass it here; semantics
@@ -637,15 +599,8 @@ def step_fn(scn, ep: EngineParams, st: NetworkState, stochastic: bool = False,
     else:
         k_rel = k_act = k_rev = k_noise = key
 
-    # 0) optional fused Pallas pass: all three ring reductions (cum_in
-    #    lookback, cum_out shockwave lookback, diffusion) in one kernel
-    hist = None
-    if getattr(scn, "use_pallas", False) and not getattr(scn, "exact_parity", False):
-        hist = _fused_hist(scn, ep, st, t)
-
     # 1) sending flows from state t-1 (all links simultaneously)
-    S, shared_density = _sending_flows(scn, ep, st, t, (k_rel, k_act), stochastic,
-                                       hist=hist)
+    S, shared_density = _sending_flows(scn, ep, st, t, (k_rel, k_act), stochastic)
 
     # 2) dynamic turning fractions (path_finder.py:717-737); density and
     #    receiving-capacity reads are t-1 / t-2 state, so order-free.
@@ -658,9 +613,8 @@ def step_fn(scn, ep: EngineParams, st: NetworkState, stochastic: bool = False,
         exact_phi = getattr(scn, "exact_parity", False)
         # fast classic path: keep phi COMPACT over the NR routed nodes and
         # let _node_solve correct just those rows — a batched dense
-        # [B, N, M, M] phi is pure HBM traffic when NR << N (grid_50x50:
-        # 115 of 2,500 nodes; the densify dot XLA-fused into the node
-        # solve as serialized per-element VPU work, profiled 373 us/step)
+        # [B, N, M, M] phi is pure memory traffic when NR << N
+        # (grid_50x50: 115 of 2,500 nodes)
         use_compact = not exact_phi and scn.assign_flows_type != "optimal"
         phi_or_c = turning_fractions_step(
             scn.routing, scn.n_nodes, scn.max_deg, scn.node_arity, scn.slot_valid,
@@ -675,7 +629,7 @@ def step_fn(scn, ep: EngineParams, st: NetworkState, stochastic: bool = False,
         phi = ep.phi_base
 
     # 3) receiving flows (needs S of reverse links)
-    R = _receiving_flows(scn, ep, st, t, S, k_rev, stochastic, hist=hist,
+    R = _receiving_flows(scn, ep, st, t, S, k_rev, stochastic,
                          tau_shock_np=tau_shock_np)
 
     # 4) node merge/diverge + write-back
@@ -687,18 +641,14 @@ def step_fn(scn, ep: EngineParams, st: NetworkState, stochastic: bool = False,
     cum_out = st.cum_out + outflow_e
     cum_in_ring = st.cum_in_ring.at[t % scn.H].set(cum_in)
     cum_out_ring = st.cum_out_ring.at[t % scn.H].set(cum_out)
-    # the inflow ring is read in-loop only by the exact-parity /
-    # deterministic / Pallas diffusion paths (the stochastic fast path
+    # the inflow ring is read in-loop only by the exact-parity and
+    # deterministic diffusion paths (the stochastic fast path
     # reconstructs the taps from cum_in differences); elsewhere it is
     # diagnostic state for host-side consumers (rl/optimization_based.py)
-    # that scenarios can opt out of maintaining — on melbourne B=1024
-    # this one unread row write cost ~250 us/step (an unfused
-    # dynamic-update-slice whose carried buffer gets a reader-less
-    # layout, plus the copies it forces; docs/PERFORMANCE.md round 4)
+    # that scenarios can opt out of maintaining (track_inflow_ring)
     need_inflow_ring = (
         getattr(scn, "track_inflow_ring", True)
         or getattr(scn, "exact_parity", False)
-        or getattr(scn, "use_pallas", False)
         or not stochastic
     )
     if need_inflow_ring:

@@ -5,7 +5,7 @@ The reference's PettingZoo env mutates a live object graph
 action clipping + application, ``action_gap`` engine steps, observation
 building, reward computation, termination — is ONE pure jitted function
 ``(state, actions, key) -> (state, obs, rewards, done)``, so thousands of
-env replicas vmap into a single XLA program and shard across a TPU mesh.
+env replicas vmap into a single XLA program and shard across a device mesh.
 
 Action semantics (rl/builders.py:241-353):
   separators: target width for the forward direction, rate-clipped to

@@ -19,6 +19,7 @@ Bidirectional coupling (functions.py:103-134): effective density
 
 import jax.numpy as jnp
 
+from .ops.division import div
 from .topology import FD_TYPES
 
 _f32 = jnp.float32
@@ -41,22 +42,22 @@ def speed_from_density(k_eff32, v_f, k_critical, k_jam, fd_type):
     # greenshields: -v_f * (k_eff - k_jam) / (k_jam - k_critical)
     den32 = (k_jam - k_critical).astype(_f32)
     v_green = jnp.where(
-        below, vf32, jnp.maximum(_f32(0.0), (-vf32 * (k_eff32 - kj32)) / den32)
+        below, vf32, jnp.maximum(_f32(0.0), div(-vf32 * (k_eff32 - kj32), den32))
     )
     # yperman: coefficient computed in f64 (python-float math) then cast
-    coef32 = ((k_critical * v_f) / (k_jam - k_critical)).astype(_f32)
+    coef32 = div(k_critical * v_f, k_jam - k_critical).astype(_f32)
     v_yper = jnp.where(
         below,
         vf32,
-        jnp.maximum(_f32(0.0), coef32 * (kj32 / safe_k - _f32(1.0))),
+        jnp.maximum(_f32(0.0), coef32 * (div(kj32, safe_k) - _f32(1.0))),
     )
     # smulders: u0 = v_f, gamma = u0 * k_critical (functions.py:107-108)
     gamma32 = (v_f * k_critical).astype(_f32)
-    inv_kjam32 = (1.0 / k_jam).astype(_f32)
+    inv_kjam32 = div(1.0, k_jam).astype(_f32)
     v_smul = jnp.where(
         below,
-        vf32 * (_f32(1.0) - k_eff32 / kj32),
-        jnp.maximum(_f32(0.0), gamma32 * (_f32(1.0) / safe_k - inv_kjam32)),
+        vf32 * (_f32(1.0) - div(k_eff32, kj32)),
+        jnp.maximum(_f32(0.0), gamma32 * (div(_f32(1.0), safe_k) - inv_kjam32)),
     )
 
     v = jnp.where(

@@ -1,8 +1,6 @@
-from .ncurve import (boundary_and_diffusion_reads, diffusion_single_pass,
-                     fused_history_reads)
+from .ncurve import boundary_and_diffusion_reads, diffusion_single_pass
 
 __all__ = [
     "boundary_and_diffusion_reads",
     "diffusion_single_pass",
-    "fused_history_reads",
 ]

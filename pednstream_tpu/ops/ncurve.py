@@ -1,49 +1,39 @@
-"""N-curve history read kernels.
+"""N-curve history reads.
 
 The engine's only non-elementwise work is reading per-link history
 values at per-link dynamic time offsets (cumulative-curve lookbacks,
-link.py:260-288,380; diffusion lags, link.py:199-214).  XLA-level one-hot
-reductions already avoid TPU's serialized gathers (docs/PERFORMANCE.md);
-these kernels cut the remaining HBM traffic:
+link.py:260-288,380; diffusion lags, link.py:199-214).  Each read is a
+one-hot masked reduction over the ring's window axis, which XLA fuses
+into one pass over the ring; these forms cut the number of passes:
 
 - :func:`diffusion_single_pass` folds the 4 lagged-inflow reads into ONE
   masked-coefficient reduction over the ring (4x less inflow-ring
-  bandwidth).  Pure jnp; used on the fast path (exact-parity mode keeps
-  the reference's 4-read summation order).
-- :func:`fused_history_reads` is a Pallas TPU kernel computing all three
-  ring reductions (cum_in lookback, cum_out lookback, diffusion) in one
-  grid pass with a shared time-index iota, tiling [H, E] blocks through
-  VMEM.
+  traffic).  Used on the deterministic fast path (exact-parity mode
+  keeps the reference's 4-read summation order).
+- :func:`boundary_and_diffusion_reads` reads the N-curve boundary and all
+  four diffusion taps from one pass over the cumulative-inflow ring
+  (stochastic fast path).
 
-Rings are stored time-major [H, E]: the links axis rides the 128-lane
-dimension (E is large, so lane padding is negligible) and the window axis
-rides sublanes, so a windowed ring (H = 16..64) is not padded up to 128
-lanes, and the per-step row write ``ring[t % H] = x`` touches one
-contiguous row of tiles instead of one lane in every tile-column.
+Rings are stored time-major [H, E]: the per-step row write
+``ring[t % H] = x`` touches one contiguous row, and the reductions run
+over the short window axis for every link in parallel.
 """
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def diffusion_single_pass(inflow_ring, base, coefs, H: int):
     """diff_raw[e] = sum_k coefs[k,e] * inflow_ring[(base[e]-k) % H, e]
     for k in 0..3 with base[e]-k >= 0, computed in one pass.
 
-    inflow_ring: [H, E] (time-major: H rides the sublane axis so windowed
-    rings aren't padded to 128 lanes and row writes are tile-contiguous);
-    base: [E] int; coefs: [4, E].
+    inflow_ring: [H, E] time-major; base: [E] int; coefs: [4, E].
     """
     h_ids = jax.lax.broadcasted_iota(jnp.int32, (H, 1), 0)
     base_slot = jnp.mod(base, H)[None, :]
     k = jnp.mod(base_slot - h_ids, H)  # lag index of slot h: [H, E]
     valid = (k < 4) & ((base[None, :] - k) >= 0)
-    # select (NOT gather: per-lane dynamic gathers serialize on TPU)
+    # per-slot coefficient by select over the 4 lags
     coef = jnp.where(
         k == 0, coefs[0][None, :],
         jnp.where(k == 1, coefs[1][None, :],
@@ -77,9 +67,7 @@ def boundary_and_diffusion_reads(cum_in_ring, idx_ci, base, coefs, H: int):
     weight — the value at an out-of-range slot is a wrapped ring row and
     must contribute nothing) is folded into the weights on the [E] axis,
     so the per-[H, E]-element cost is one lag compute + a 5-way weight
-    select + multiply-add (~17 VPU ops/element vs ~25 for the earlier
-    six-masked-sum form — this reduction is compute-bound,
-    docs/PERFORMANCE.md).  Both outputs share the one lag index; a
+    select + multiply-add.  Both outputs share the one lag index; a
     negative ``idx_ci`` reads 0 via an [E]-level sentinel slot, costing
     nothing per ring element.  XLA multi-output-fuses the two
     accumulators into a single read of the ring.
@@ -109,13 +97,11 @@ def boundary_and_diffusion_reads(cum_in_ring, idx_ci, base, coefs, H: int):
                                       jnp.where(k == 4, w[4][None, :], 0.0)))),
     )
     # BOTH accumulators through ONE variadic lax.reduce: two sibling
-    # jnp.sum calls compile to two separate reduce fusions that each
-    # stream the full [H, E] ring from HBM (profiled at B=256/H=16:
-    # 236us + 214us per step, ~20% of the grid_50x50 step); a single
-    # variadic reduce forces XLA to emit one fusion that loads each
-    # ring element once and feeds both multiply-accumulates from the
-    # register.  Mask-multiply is IEEE-exact here: ring values are
-    # finite and non-negative, so 1.0*x == x and 0.0*x == 0.
+    # jnp.sum calls can compile to two reduce fusions that each stream
+    # the full [H, E] ring from memory; a single variadic reduce makes
+    # XLA emit one fusion that loads each ring element once and feeds
+    # both multiply-accumulates.  Mask-multiply is IEEE-exact here: ring
+    # values are finite and non-negative, so 1.0*x == x and 0.0*x == 0.
     zero = jnp.zeros((), cum_in_ring.dtype)
     ci, diff = jax.lax.reduce(
         (cum_in_ring * sel_ci.astype(cum_in_ring.dtype), cum_in_ring * coef),
@@ -124,72 +110,3 @@ def boundary_and_diffusion_reads(cum_in_ring, idx_ci, base, coefs, H: int):
         [0],
     )
     return ci, diff
-
-
-def _fused_kernel(idx_ci_ref, idx_co_ref, base_ref, coef_ref,
-                  ci_ring_ref, co_ring_ref, in_ring_ref,
-                  ci_out_ref, co_out_ref, diff_out_ref, *, H: int):
-    h_ids = jax.lax.broadcasted_iota(jnp.int32, (H, 1), 0)
-
-    def onehot_read(ring, idx2):  # idx2: [1, tile]
-        sel = (h_ids == jnp.mod(idx2, H)) & (idx2 >= 0)
-        return jnp.where(sel, ring, 0.0).sum(axis=0, keepdims=True)
-
-    ci_out_ref[:] = onehot_read(ci_ring_ref[:], idx_ci_ref[:])
-    co_out_ref[:] = onehot_read(co_ring_ref[:], idx_co_ref[:])
-
-    base2 = base_ref[:]  # [1, tile]
-    k = jnp.mod(jnp.mod(base2, H) - h_ids, H)
-    valid = (k < 4) & ((base2 - k) >= 0)
-    coefs = coef_ref[:]  # [4, tile]
-    coef = jnp.where(k == 0, coefs[0:1, :],
-                     jnp.where(k == 1, coefs[1:2, :],
-                               jnp.where(k == 2, coefs[2:3, :], coefs[3:4, :])))
-    coef = jnp.where(valid, coef, 0.0)
-    diff_out_ref[:] = (in_ring_ref[:] * coef).sum(axis=0, keepdims=True)
-
-
-def fused_history_reads(cum_in_ring, cum_out_ring, inflow_ring,
-                        idx_ci, idx_co, base, coefs, H: int,
-                        tile: int = 512, interpret: bool = False):
-    """All three per-step history reductions in one Pallas pass.
-
-    Rings are time-major [H, E]; coefs is [4, E].
-    Returns (cum_in_at[E], cum_out_at[E], diff_raw[E]).
-    """
-    E = cum_in_ring.shape[1]
-    pad = (-E) % tile
-    if pad:
-        padr = lambda x: jnp.pad(x, ((0, 0),) * (x.ndim - 1) + ((0, pad),))
-        cum_in_ring, cum_out_ring, inflow_ring = map(
-            padr, (cum_in_ring, cum_out_ring, inflow_ring))
-        idx_ci, idx_co, base = map(padr, (idx_ci, idx_co, base))
-        coefs = padr(coefs)
-    Ep = E + pad
-    grid = (Ep // tile,)
-
-    # scalars as [1, E] so all kernel ops stay >= 2-D (Mosaic cannot
-    # reshape 1-D i1 vectors)
-    idx_ci2 = idx_ci.astype(jnp.int32)[None, :]
-    idx_co2 = idx_co.astype(jnp.int32)[None, :]
-    base2 = base.astype(jnp.int32)[None, :]
-
-    row = lambda: pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    ring = lambda: pl.BlockSpec((H, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-
-    out = pl.pallas_call(
-        partial(_fused_kernel, H=H),
-        grid=grid,
-        in_specs=[row(), row(), row(),
-                  pl.BlockSpec((4, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-                  ring(), ring(), ring()],
-        out_specs=(row(), row(), row()),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, Ep), cum_in_ring.dtype),
-            jax.ShapeDtypeStruct((1, Ep), cum_out_ring.dtype),
-            jax.ShapeDtypeStruct((1, Ep), inflow_ring.dtype),
-        ),
-        interpret=interpret,
-    )(idx_ci2, idx_co2, base2, coefs, cum_in_ring, cum_out_ring, inflow_ring)
-    ci, co, diff = out
-    return ci[0, :E], co[0, :E], diff[0, :E]

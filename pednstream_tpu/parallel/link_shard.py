@@ -1,24 +1,24 @@
 """Link-axis (simulation-state) sharding — SURVEY §2.6's "TP" analog.
 
-The DP path (parallel/mesh.py) shards the REPLICA axis: every chip holds
-whole networks.  A network whose state exceeds one chip's HBM — the
-blueprint's stated 10k+-link motivation; state is O(E*H) ring buffers —
-needs the other decomposition: shard the LINK axis of a single replica
-across the mesh, so each chip holds a block of directed links (N-curve
-rings, FD state, control surface) and only the small per-step exchange
-vectors cross chips.
+The DP path (parallel/mesh.py) shards the REPLICA axis: every device
+holds whole networks.  A network whose state exceeds one device's
+memory — the blueprint's stated 10k+-link motivation; state is O(E*H)
+ring buffers — needs the other decomposition: shard the LINK axis of a
+single replica across the mesh, so each device holds a block of directed
+links (N-curve rings, FD state, control surface) and only the small
+per-step exchange vectors cross devices.
 
 There is no reference analog to cite: the reference is a single-process
 object graph (SURVEY §2.6 maps its absence of TP).  This module is the
-planned TPU-native equivalent from the blueprint's own checklist.
+planned equivalent from the blueprint's own checklist.
 
 Design — the scaling-book recipe (pick a mesh, annotate shardings, let
 XLA's SPMD partitioner insert collectives):
 
   * ``NetworkState`` link-axis leaves get ``NamedSharding P('link')``;
     ring buffers ``[H, E]`` get ``P(None, 'link')`` — the window axis
-    stays chip-local, so the one-hot ring reductions (engine._ring_read)
-    remain shard-local VPU work at full memory bandwidth;
+    stays device-local, so the one-hot ring reductions
+    (engine._ring_read) remain shard-local;
   * node-axis leaves (``[N]`` virtual flows, ``[N, T+1]`` demand,
     ``[N, M, M]`` phi) are REPLICATED: they are O(N) / O(N*M^2) — a
     rounding error next to the O(E*H) rings — and N is rarely divisible
@@ -32,9 +32,10 @@ XLA's SPMD partitioner insert collectives):
     reverse_idx == e ^ 1), so only pairs straddling a shard edge
     communicate at all.
 
-The directed-link count E must be divisible by the mesh size (E is
-always even — links come in corridor pairs — and grids/real datasets
-here are all divisible by 8; pad the corridor list if yours is not).
+The directed-link count E must be divisible by the link axis size; the
+sharding helpers raise otherwise.  E is always even (links come in
+corridor pairs), but e.g. melbourne's E = 938 does not divide by 4, and
+grid_50x50's E = 9,800 does.
 
 Bit-exactness: partitioning changes no floating-point reduction order —
 every in-step reduction runs over unsharded axes (the ring window H, the
@@ -92,14 +93,26 @@ def link_params_shardings(mesh: Mesh, axis: str = "link") -> EngineParams:
     )
 
 
+def check_link_divisible(n_links: int, mesh: Mesh, axis: str = "link") -> None:
+    """Raise unless the link axis of size ``n_links`` splits evenly over
+    the mesh axis ``axis``."""
+    n = mesh.shape[axis]
+    if n_links % n:
+        raise ValueError(
+            f"{n_links} directed links do not divide over the {n}-device "
+            f"'{axis}' mesh axis; use a mesh size that divides {n_links}")
+
+
 def shard_link_state(state: NetworkState, mesh: Mesh,
                      axis: str = "link") -> NetworkState:
     """Physically place a state with its link axis sharded over ``mesh``."""
+    check_link_divisible(state.cum_in.shape[-1], mesh, axis)
     return jax.device_put(state, link_state_shardings(mesh, axis))
 
 
 def shard_link_params(ep: EngineParams, mesh: Mesh,
                       axis: str = "link") -> EngineParams:
+    check_link_divisible(ep.length.shape[-1], mesh, axis)
     return jax.device_put(ep, link_params_shardings(mesh, axis))
 
 
@@ -115,6 +128,7 @@ def make_link_sharded_simulate(scn, mesh: Mesh, num_steps: int,
     """
     from ..engine import step_fn
 
+    check_link_divisible(scn.n_links, mesh, axis)
     st_sh = link_state_shardings(mesh, axis)
     ep_sh = link_params_shardings(mesh, axis)
 
@@ -135,6 +149,7 @@ def make_link_sharded_step(scn, mesh: Mesh, stochastic: bool = False,
     RL-control stepping on a link-sharded network)."""
     from ..engine import step_fn
 
+    check_link_divisible(scn.n_links, mesh, axis)
     st_sh = link_state_shardings(mesh, axis)
     ep_sh = link_params_shardings(mesh, axis)
 
@@ -151,9 +166,10 @@ def hybrid_state_shardings(mesh: Mesh, env_axis: str = "env",
     """Shardings for a BATCHED NetworkState (leading replica axis) on a
     2-D mesh (parallel/mesh.py make_mesh_2d): replicas block over
     ``env`` (pure DP — rollouts never communicate across it), each
-    replica's link axis blocks over ``link`` (the per-step node exchange
-    rides the fast axis).  The pod-scale layout from SURVEY §2.6: DP
-    over DCN x state-sharding over ICI, in one SPMD program."""
+    replica's link axis blocks over ``link`` (it carries the per-step
+    node exchange).  SURVEY §2.6's layout, DP x state-sharding in one
+    SPMD program; on NVLink-connected cards every pair of devices is
+    equally close, so which cards form a link group does not matter."""
     ring = NamedSharding(mesh, P(env_axis, None, link_axis))  # [B, H, E]
     vec = NamedSharding(mesh, P(env_axis, link_axis))  # [B, E]
     b = NamedSharding(mesh, P(env_axis))  # [B] and [B, N]
@@ -172,6 +188,7 @@ def hybrid_state_shardings(mesh: Mesh, env_axis: str = "env",
 def shard_hybrid_state(states: NetworkState, mesh: Mesh,
                        env_axis: str = "env",
                        link_axis: str = "link") -> NetworkState:
+    check_link_divisible(states.cum_in.shape[-1], mesh, link_axis)
     return jax.device_put(states,
                           hybrid_state_shardings(mesh, env_axis, link_axis))
 
@@ -186,6 +203,7 @@ def make_hybrid_sharded_simulate(scn, mesh: Mesh, num_steps: int,
     EngineParams, link-sharded as in the 1-D path)."""
     from ..engine import simulate_batched
 
+    check_link_divisible(scn.n_links, mesh, link_axis)
     st_sh = hybrid_state_shardings(mesh, env_axis, link_axis)
     ep_sh = link_params_shardings(mesh, link_axis)
 

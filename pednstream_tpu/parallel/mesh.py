@@ -1,10 +1,9 @@
 """Multi-chip scaling: device meshes and sharded batched environments.
 
 The reference's only parallelism is process-level Ray rollout workers
-(rl/train_ppo_rllib.py:62-64).  The TPU-native design instead runs
-thousands of env replicas as ONE SPMD program: replicas vmap on-device
-and shard across chips over ICI via ``jax.sharding`` — XLA inserts the
-collectives.  Training gradients reduce with ``psum`` inside
+(rl/train_ppo_rllib.py:62-64).  Here thousands of env replicas run as
+ONE SPMD program: replicas vmap on-device and shard across devices via
+``jax.sharding`` — XLA inserts the collectives.  Training gradients reduce with ``psum`` inside
 ``shard_map`` (see pednstream_tpu.rl.train for the full step).
 
 Axes:
@@ -13,7 +12,7 @@ Axes:
              nets are tiny and the simulation state dominates)
   ``link`` — the directed-link axis of a SINGLE replica's simulation
              state (parallel/link_shard.py): the TP analog for networks
-             whose O(E*H) ring state exceeds one chip's HBM
+             whose O(E*H) ring state exceeds one device's memory
 """
 
 from functools import partial
@@ -27,9 +26,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "env") -> Mesh:
     """1-D device mesh over ``axis`` ('env' for replica DP; 'link' for
-    simulation-state sharding via parallel/link_shard.py)."""
+    simulation-state sharding via parallel/link_shard.py), over the first
+    ``n_devices`` devices (all when None).  Raises when fewer exist."""
     devs = jax.devices()
     if n_devices is not None:
+        if len(devs) < n_devices:
+            raise ValueError(f"need {n_devices} devices, have {len(devs)}")
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis,))
 
@@ -40,12 +42,11 @@ def make_mesh_2d(n_env: int, n_link: int,
     axis x link-state sharding on the second (parallel/link_shard.py
     hybrid_* helpers).
 
-    Axis ordering follows the standard device-mesh recipe: the
-    LAST-NAMED axis varies fastest over the device list, so on real
-    hardware the link axis (which carries the per-step node-exchange
-    collectives) maps to adjacent chips (ICI) while the env axis (pure
-    DP, no rollout communication) spans the slower links / DCN.  On the
-    virtual CPU mesh the layout is only a shape.
+    The last-named axis varies fastest over the device list.  Four
+    NVLink-connected H100s reach each other all to all at the same rate,
+    so the placement of the axes on the cards does not matter: the mesh
+    shape follows the algorithm alone (how many replica groups, how many
+    link blocks).
     """
     devs = jax.devices()
     n = n_env * n_link

@@ -2,7 +2,7 @@
 
 The reference randomizes per episode on the host (env_loader.py:160-424:
 link capacity/speed incidents on ~20% of corridors, randomized demand
-levels, randomized OD flow weights).  For batched TPU training those
+levels, randomized OD flow weights).  For batched training those
 perturbations must ride in a vmappable pytree: this module draws a
 randomized :class:`EngineParams` per replica with the same perturbation
 distributions (demand randomization perturbs levels rather than

@@ -3,7 +3,7 @@
 The reference integrates RLlib (rl/train_ppo_rllib.py:23-34, Ray rollout
 workers as its only parallelism) and Stable-Baselines3 via a concat
 wrapper (rl/train_ppo_sb3.py:52-120).  Both frameworks are optional
-here — the TPU-native batched trainer supersedes process-level rollout
+here — the batched trainer supersedes process-level rollout
 workers — but the thin adapters are provided for users migrating
 existing pipelines.
 """

@@ -1,4 +1,4 @@
-"""TPU-native batched PPO: vectorized rollouts + updates, one XLA program.
+"""Batched PPO: vectorized rollouts + updates, one XLA program.
 
 The reference scales rollouts with Ray worker processes
 (train_ppo_rllib.py:62-64) and trains its default attention-LSTM policy
@@ -33,10 +33,7 @@ Usage:
     for it in range(100):
         state, metrics = trainer.train_iteration(state)
 
-The init key must be a threefry key (the default).  ``unsafe_rbg``
-keys — the fast path used by the engine-only bench (bench.py) — crash
-the remote TPU worker when used inside the trainer's compiled program
-(see RUNBOOK.md "Process hygiene").
+The init key is a threefry key (the default).
 """
 
 from typing import Dict, Optional
@@ -46,10 +43,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from ..env.agents import FEATURES_PER_LINK
 from ..env.core import PedNetEnvCore
+from ..pytree import pytree_dataclass
 from ..randomize import randomize_engine_params
 from .networks import (
     AttentionPolicy,
@@ -63,7 +60,7 @@ from .networks import (
 from .ppo import _gaussian_logprob
 
 
-@struct.dataclass
+@pytree_dataclass
 class TrainerState:
     env_states: object
     obs: Dict[str, jnp.ndarray]

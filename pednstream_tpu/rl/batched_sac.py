@@ -1,4 +1,4 @@
-"""TPU-native batched SAC: vectorized collection + scanned updates.
+"""Batched SAC: vectorized collection + scanned updates.
 
 The reference trains SAC through a per-episode host loop
 (rl/agents/SAC_copy.py:157-310) — one environment, one gradient step
@@ -36,15 +36,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from ..env.agents import FEATURES_PER_LINK
 from ..env.core import PedNetEnvCore
+from ..pytree import pytree_dataclass
 from ..randomize import randomize_engine_params
 from .networks import SACActor, SACCritic
 
 
-@struct.dataclass
+@pytree_dataclass
 class SACTrainerState:
     env_states: object
     obs: Dict[str, jnp.ndarray]          # raw per-agent obs [B, obs_dim]

@@ -239,7 +239,7 @@ def train_off_policy_multi_agent(
     return history
 
 
-# -- TPU-native data-parallel batched trainer ------------------------------------
+# -- data-parallel batched trainer ----------------------------------------------
 
 def init_train_state(core, key):
     """Policy + optimizer state for the batched data-parallel trainer."""

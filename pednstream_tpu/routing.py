@@ -6,7 +6,7 @@ simple paths per OD pair (path_finder.py:114-142,199-234), expands detour
 paths at controller nodes (:304-458), and each step recomputes per-node
 logit turn probabilities (:561-589) mixed with OD flow shares (:591-689).
 
-TPU-native split:
+Host/device split:
   * everything topological (path enumeration, controller expansion, turn
     distance tables, OD->upstream assignments) is compiled ON HOST at
     scenario build time into flat "turn entry" / "(up, od) entry" tensors
@@ -19,13 +19,14 @@ TPU-native split:
 from collections import defaultdict
 from typing import Dict, List, Optional, Set, Tuple
 
-import networkx as nx
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from . import paths as nxp
+from .ops.division import div
+from .pytree import pytree_dataclass, static_field
 from .topology import TopologySpec
 
 
@@ -35,17 +36,13 @@ from .topology import TopologySpec
 
 def enumerate_shortest_simple_paths(graph, origin, dest, max_paths=None):
     """K shortest simple paths by total weight (path_finder.py:114-142)."""
-    try:
-        paths_iter = nx.shortest_simple_paths(graph, origin, dest, weight="weight")
-    except Exception:
-        return []
     paths = []
     try:
-        for path in paths_iter:
+        for path in nxp.shortest_simple_paths(graph, origin, dest):
             paths.append(path)
             if max_paths is not None and len(paths) >= max_paths:
                 break
-    except nx.NetworkXNoPath:
+    except nxp.NoPath:
         return []
     return paths
 
@@ -80,9 +77,9 @@ class PathSetBuilder:
         self.controller_nodes = set(controller_nodes or set())
         self.controllers_enabled = bool(controller_nodes or controller_links)
 
-        self.graph = nx.DiGraph()
+        self.graph = nxp.DiGraph()
         for e, (u, v) in enumerate(topo.link_nodes):
-            self.graph.add_edge(int(u), int(v), weight=float(topo.link_params.length[e]))
+            self.graph.add_edge(int(u), int(v), float(topo.link_params.length[e]))
 
         self.od_paths: Dict[Tuple[int, int], List[List[int]]] = {}
         self.nodes_in_paths: Set[int] = set()
@@ -138,10 +135,10 @@ class PathSetBuilder:
                 edge = (p[i], p[i + 1])
                 if edge not in all_od_edges:
                     try:
-                        all_od_edges[edge] = nx.shortest_path_length(
-                            self.graph, p[i + 1], dest, weight="weight"
+                        all_od_edges[edge] = nxp.shortest_path_length(
+                            self.graph, p[i + 1], dest
                         )
-                    except nx.NetworkXNoPath:
+                    except nxp.NoPath:
                         all_od_edges[edge] = 0
         if all_od_edges:
             max_dist = max(all_od_edges.values())
@@ -153,7 +150,7 @@ class PathSetBuilder:
                         )
                     else:
                         dyn = self.detour_penalty_factor
-                    modified[u][v]["weight"] = modified[u][v].get("weight", 1) * dyn
+                    modified.weight[(u, v)] = modified.weight[(u, v)] * dyn
 
         for path in paths:
             if node_id not in path:
@@ -194,11 +191,11 @@ class PathSetBuilder:
         """Remaining distance along path (path_finder.py:284-300)."""
         dist = 0.0
         for i in range(start_idx, len(path) - 1):
-            dist += self.graph.edges[(path[i], path[i + 1])]["weight"]
+            dist += self.graph.weight[(path[i], path[i + 1])]
         return dist
 
 
-@struct.dataclass
+@pytree_dataclass
 class RoutingTables:
     """Flat device tables for the per-step turning-fraction update.
 
@@ -228,14 +225,11 @@ class RoutingTables:
     beta: jnp.ndarray
     omega: jnp.ndarray
 
-    # static one-hot aggregation matrices: on TPU, segment_sum lowers to
-    # scatter-adds that serialize; with K entries these tiny matmuls ride
-    # the MXU instead (used on the fast path; exact-parity keeps
-    # segment_sum's summation order).  The phi scatter goes through a
-    # COMPACT slot space over the NR routed nodes only: a direct
-    # [K, N*M*M] one-hot was 99 MB on grid_50x50 (2,500 nodes) and its
-    # matmul streamed that matrix every step for 460 live columns
-    # (profiled at 198 us/step, 11% of the whole batched step); the
+    # static one-hot aggregation matrices: the fast path sums segments
+    # with small matmuls against these (exact-parity keeps segment_sum's
+    # summation order).  The phi scatter goes through a COMPACT slot
+    # space over the NR routed nodes only: a direct [K, N*M*M] one-hot
+    # is 99 MB on grid_50x50 (2,500 nodes) for 460 live columns; the
     # compact pair is ~6 MB and the densify matmul has exactly one
     # nonzero per output column, so the result is bitwise identical.
     onehot_te_group: jnp.ndarray  # [K, G]
@@ -244,10 +238,10 @@ class RoutingTables:
     onehot_densify: jnp.ndarray  # [NR, N] compact row -> dense node row
     routed_ids: jnp.ndarray  # [NR] int32, sorted routed node ids
 
-    num_groups: int = struct.field(pytree_node=False)
-    num_uo_groups: int = struct.field(pytree_node=False)
-    num_entries: int = struct.field(pytree_node=False)
-    num_routed: int = struct.field(pytree_node=False)
+    num_groups: int = static_field()
+    num_uo_groups: int = static_field()
+    num_entries: int = static_field()
+    num_routed: int = static_field()
 
 
 def build_routing_tables(
@@ -428,11 +422,14 @@ def turning_fractions_step(
 
     def seg(vals, seg_ids, num, onehot):
         # exact-parity keeps segment_sum's accumulation order; the fast
-        # path aggregates with a static one-hot matmul (MXU) because
-        # segment_sum lowers to serialized scatter-adds on TPU
+        # path aggregates with a static one-hot matmul.  HIGHEST keeps the
+        # f32 operands whole: the default GPU precision may run the
+        # product in TF32 (~3 decimal digits), which would perturb the
+        # logit normalizers on every routed step
         if exact:
             return jax.ops.segment_sum(vals, seg_ids, num_segments=num)
-        return vals @ onehot.astype(vals.dtype)
+        return jnp.matmul(vals, onehot.astype(vals.dtype),
+                          precision=jax.lax.Precision.HIGHEST)
 
     # P(od | up): od-flow-weighted shares per (node, up) group
     # (path_finder.py:599-615)
@@ -440,7 +437,7 @@ def turning_fractions_step(
     tot = seg(w, rt.uo_group, rt.num_uo_groups, rt.onehot_uo_group)
     tot_g = tot[rt.uo_group]
     cnt_g = rt.uo_group_count[rt.uo_group].astype(f)
-    p_uo = jnp.where(tot_g > 0, w / jnp.where(tot_g > 0, tot_g, 1.0), 1.0 / cnt_g)
+    p_uo = jnp.where(tot_g > 0, div(w, jnp.where(tot_g > 0, tot_g, 1.0)), div(1.0, cnt_g))
 
     # P(down | up, od): logit over candidate turns of each (node, od, up).
     # Dtype staging mirrors path_finder.py:561-589: densities are f32
@@ -454,17 +451,17 @@ def turning_fractions_step(
         jnp.where(rp >= 0, rp, cap_default[safe]),
         100.0,  # virtual exits get high capacity (path_finder.py:577-579)
     ).astype(f)
-    norm_d32 = jnp.maximum(dens32 - f32(2.0), f32(0.0)) / f32(10.0 - 2.0)  # :581
+    norm_d32 = div(jnp.maximum(dens32 - f32(2.0), f32(0.0)), f32(10.0 - 2.0))  # :581
     cap_sum = seg(cap, rt.te_group, rt.num_groups, rt.onehot_te_group)
     te_dist = rt.te_dist.astype(f)
     util = (
-        rt.alpha.astype(f) * te_dist / (rt.group_dist_sum[rt.te_group].astype(f) + 1e-6)
+        div(rt.alpha.astype(f) * te_dist, rt.group_dist_sum[rt.te_group].astype(f) + 1e-6)
         + (rt.beta.astype(f32) * norm_d32).astype(f)
-        - rt.omega.astype(f) * cap / (cap_sum[rt.te_group] + 1e-6)
+        - div(rt.omega.astype(f) * cap, cap_sum[rt.te_group] + 1e-6)
     )
     z = jnp.exp(-rt.temp.astype(f) * util)
     zsum = seg(z, rt.te_group, rt.num_groups, rt.onehot_te_group)
-    p_turn = z / zsum[rt.te_group]
+    p_turn = div(z, zsum[rt.te_group])
 
     contrib = p_turn * p_uo[rt.te_uo_idx]
 
@@ -474,11 +471,11 @@ def turning_fractions_step(
         eye = jnp.eye(max_deg, dtype=bool)
         offdiag_valid = sv[:, :, None] & sv[:, None, :] & ~eye[None]
         rowsum = phi.sum(axis=-1)
-        inv = (1.0 / jnp.maximum(arity.astype(f) - 1.0, 1.0))[:, None, None]
+        inv = div(1.0, jnp.maximum(arity.astype(f) - 1.0, 1.0))[:, None, None]
         uniform = jnp.where(offdiag_valid, inv, 0.0)
         need_fix = jnp.abs(rowsum - 1.0) > 1e-3
         rs_safe = jnp.where(rowsum > 1e-6, rowsum, 1.0)
-        phi_norm = phi / rs_safe[:, :, None]
+        phi_norm = div(phi, rs_safe[:, :, None])
         return jnp.where(
             (need_fix & (rowsum > 1e-6))[:, :, None],
             phi_norm,
@@ -496,10 +493,8 @@ def turning_fractions_step(
         # then densify with a one-nonzero-per-column 0/1 matmul — bitwise
         # identical to the dense [K, N*M*M] scatter-matmul (x*1 + 0*y == x
         # for these finite non-negative values) at a fraction of the HBM
-        # traffic and MXU work (docs/PERFORMANCE.md round-4 trail)
-        # precision=HIGHEST: the default TPU dot precision rounds the f32
-        # operands through bf16 passes (~2^-9 relative error on phi); the
-        # compact matrices are small enough that full-f32 passes are cheap
+        # traffic and matmul work.  precision=HIGHEST: a reduced-precision
+        # default (TF32 on the GPU) would round phi to ~3 decimal digits
         hi = jax.lax.Precision.HIGHEST
         phi_c = jnp.matmul(contrib, rt.onehot_phi_c.astype(contrib.dtype),
                            precision=hi).reshape(rt.num_routed, max_deg, max_deg)

@@ -1,6 +1,6 @@
 """Scenario: compiled static topology + device parameters + state factory.
 
-``build_scenario`` is the TPU-native equivalent of constructing the
+``build_scenario`` is the array-program equivalent of constructing the
 reference ``Network`` object (src/LTM/network.py:56-121): it compiles the
 adjacency matrix, link parameters, controller configuration, demand
 curves, OD tables and routing turn tables into device-ready arrays, and
@@ -70,17 +70,11 @@ class Scenario:
         exact_parity: bool = False,
         history_window: Optional[int] = None,
         binomial_mode: str = "exact",
-        use_pallas: bool = False,
-        pallas_interpret: bool = False,
         track_inflow_ring: bool = True,
     ):
         self.exact_parity = exact_parity
         self.history_window = history_window
         self.binomial_mode = binomial_mode
-        # fused Pallas history-read kernel (ops/ncurve.py); interpret
-        # mode runs the kernel in the Pallas interpreter (CPU tests)
-        self.use_pallas = use_pallas
-        self.pallas_interpret = pallas_interpret
         # the stochastic fast path reconstructs the diffusion taps from
         # cum_in differences (ops/ncurve.py) and never reads the inflow
         # ring in-loop; its per-step row write is pure diagnostic state
@@ -88,8 +82,8 @@ class Scenario:
         # the final state).  track_inflow_ring=False skips maintaining it
         # on that path — dynamics are unchanged; state.inflow_ring stays
         # zeros.  The flag is ignored (ring always maintained) whenever
-        # some in-loop reader needs it: exact-parity, deterministic mode,
-        # or the Pallas fused-history kernel.
+        # some in-loop reader needs it: exact-parity or deterministic
+        # mode.
         self.track_inflow_ring = track_inflow_ring
         self.topo = topo
         self.params = params
@@ -150,7 +144,7 @@ class Scenario:
         # the reference exactly; O(E*T) HBM is fine for T <= a few
         # thousand.  ``history_window`` selects a windowed-ring mode that
         # clamps tau to the window (a modeling choice: bounded congestion
-        # memory) and cuts both HBM and gather bandwidth — the fast mode
+        # memory) and cuts both memory and ring-read traffic — the fast mode
         # for batched RL training.
         T = self.simulation_steps
         if history_window is not None:
@@ -238,8 +232,6 @@ def build_scenario(
     exact_parity: bool = False,
     history_window: Optional[int] = None,
     binomial_mode: str = "exact",
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
     track_inflow_ring: bool = True,
     od_candidates: Optional[Tuple[List[int], List[int]]] = None,
 ) -> Scenario:
@@ -373,8 +365,6 @@ def build_scenario(
         exact_parity=exact_parity,
         history_window=history_window,
         binomial_mode=binomial_mode,
-        use_pallas=use_pallas,
-        pallas_interpret=pallas_interpret,
         track_inflow_ring=track_inflow_ring,
     )
     # in-vmap OD-node randomization metadata (see randomize.py)

@@ -2,11 +2,11 @@
 
 Replaces the per-object arrays of the reference BaseLink/Link
 (src/LTM/link.py:4-99) with fixed-shape ring buffers sized to the maximum
-lookback horizon H instead of the full horizon T+1, so HBM residency is
+lookback horizon H instead of the full horizon T+1, so device memory is
 O(E*H) regardless of simulation length.  Full trajectories are streamed
 out as ``lax.scan`` outputs when recording is requested.
 
-All flow quantities use the scenario's flow dtype (float32 on TPU,
+All flow quantities use the scenario's flow dtype (float32 by default,
 float64 in CPU parity-test mode); kinematic quantities (travel time,
 density, speed, pedestrian counts) are float32 to mirror the reference's
 array dtypes (link.py:82-97), which matters for bit-level parity of
@@ -17,10 +17,11 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from .pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class EngineParams:
     """Per-link / per-node parameters that may vary across vmapped env
     replicas (domain randomization perturbs k_critical/k_jam/
@@ -58,17 +59,15 @@ class EngineParams:
     tau_shockwave: jnp.ndarray  # [E] i32, round(L/(w*dt)) (link.py:380)
 
 
-@struct.dataclass
+@pytree_dataclass
 class NetworkState:
     """Carry of the per-step scan."""
 
     t: jnp.ndarray  # scalar int32, next time step to execute (starts at 1)
     key: jax.Array  # PRNG key (stochastic mode)
 
-    # ring buffers, time-major [H, E] (time index i lives at row i % H).
-    # The links axis rides the TPU 128-lane dimension so windowed rings
-    # (H = 16..64) aren't padded to 128 lanes, and the per-step row write
-    # touches one contiguous tile row (see ops/ncurve.py).
+    # ring buffers, time-major [H, E] (time index i lives at row i % H):
+    # the per-step row write touches one contiguous row (ops/ncurve.py).
     cum_in_ring: jnp.ndarray
     cum_out_ring: jnp.ndarray
     inflow_ring: jnp.ndarray
@@ -100,7 +99,7 @@ class NetworkState:
     virt_arr_cum: jnp.ndarray  # [N]
 
 
-@struct.dataclass
+@pytree_dataclass
 class StepOutputs:
     """Per-step recorded trajectory slice (scan ys)."""
 

@@ -1,7 +1,7 @@
 """Scenario compiler: adjacency matrix -> static struct-of-arrays topology.
 
 The reference builds an object graph of Node/Link instances
-(src/LTM/network.py:194-248, node.py:6-64).  The TPU engine instead needs
+(src/LTM/network.py:194-248, node.py:6-64).  The array engine instead needs
 static index tensors.  This module compiles:
 
   - directed link list in reference creation order (upper-triangle corridor

@@ -20,7 +20,7 @@ from .visualizer import NetworkVisualizer
 _PROPS = ["density", "flow", "speed", "num_pedestrians", "travel_time"]
 
 _TEMPLATE = """<!DOCTYPE html>
-<html><head><meta charset="utf-8"><title>PedNStream-TPU — {title}</title>
+<html><head><meta charset="utf-8"><title>PedNStream — {title}</title>
 <style>
  body {{ font-family: sans-serif; margin: 1em; background: #fafafa; }}
  svg {{ background: white; border: 1px solid #ddd; }}

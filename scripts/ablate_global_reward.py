@@ -1,6 +1,6 @@
 """Controlled ablation: delay-aligned global reward term / GAE horizon.
 
-Two VERDICT-r4 questions, one harness:
+Two questions about the PPO controllers, one harness:
 
   * does a small shared ``-coef * total in-network count`` term in the
     TRAINING reward (env/core.py global_reward_coef; evaluation rewards

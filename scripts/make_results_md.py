@@ -189,7 +189,6 @@ def main():
             r0 = curve[0]["reward"]
             rl = np.mean([c["reward"] for c in curve[-10:]])
             cfg = json.load(open(os.path.join(os.path.dirname(cj), "config.json")))
-            per_iter = cfg["engine_steps"] / len(curve)
             # phase-controlled learning signal: the trainer's continuing
             # lockstep envs make iteration i sample a fixed WINDOW of the
             # fixed-horizon episode (rollout_len RL steps of an
@@ -223,24 +222,13 @@ def main():
                                   f"episode phase, period {period})")
             except Exception:
                 pass
-            if "wall_s" in curve[0] and len(curve) > 1:
-                compile_s = curve[0]["wall_s"]
-                steady = float(np.median([c["wall_s"] for c in curve[1:]]))
-                timing = (f"compile {compile_s:.0f}s + "
-                          f"{steady*1e3:.0f} ms/iteration steady-state "
-                          f"({per_iter/steady/1e3:.0f}k engine-steps/s)")
-            else:
-                timing = (f"{cfg['train_time_s']:.0f}s compile-INCLUSIVE "
-                          f"({cfg['engine_steps']/cfg['train_time_s']/1e3:.0f}k "
-                          f"steps/s lower bound)")
             curves.append(
                 f"- **{base}**: {len(curve)} iterations, "
-                f"{cfg['engine_steps']/1e6:.1f}M engine steps; {timing}; "
+                f"{cfg['engine_steps']/1e6:.1f}M engine steps; "
                 f"reward {r0:.0f} (start) -> {rl:.0f} (last-10 mean)"
                 f"{phase_note}"
             )
-        # batched-SAC training rows (host-loop SAC checkpoints have no
-        # per-iteration wall_s; only batched_sac curves carry one)
+        # batched-SAC training rows
         scj = os.path.join(REPO, "artifacts", "zoo", f"sac_agents_{base}",
                            "curve.json")
         scfg_p = os.path.join(os.path.dirname(scj), "config.json")
@@ -249,13 +237,10 @@ def main():
             if scfg.get("trainer") == "batched_sac":
                 with open(scj) as f:
                     curve = json.load(f)
-                steady = float(np.median([c["wall_s"] for c in curve[1:]]))
                 curves.append(
                     f"- **{base} (batched SAC)**: {len(curve)} iterations "
                     f"x 64 gradient steps ({scfg.get('gradient_steps', 0)/1e3:.0f}k "
-                    f"total, ~20x the host-loop budget); compile "
-                    f"{curve[0]['wall_s']:.0f}s + {steady*1e3:.0f} ms/iteration "
-                    f"steady-state"
+                    f"total, ~20x the host-loop budget)"
                 )
 
     doc = """# Results: trained-agent zoo vs baselines
@@ -263,7 +248,7 @@ def main():
 Produced by `scripts/train_zoo.py` (training) + `scripts/make_results_md.py`
 (this table).  PPO = batched attention-LSTM trainer (256 per-replica
 domain-randomized worlds, the reference's randomization distribution);
-SAC = twin-Q, trained per dataset by whichever of the TPU-native batched
+SAC = twin-Q, trained per dataset by whichever of the batched
 trainer (`rl/batched_sac.py`, "(batched SAC)" rows below) or the
 reference-style host loop validated best — retrains only replace a
 checkpoint through a same-protocol no-regress gate; rule_based /
@@ -379,7 +364,7 @@ in jammed regimes closure improves the local reward short-term while
 the spillback catastrophe lies beyond GAE's effective horizon
 (rl/batched_ppo.py randomize_fraction documents this).
 
-## Training throughput (1 TPU chip)
+## Training curves
 
 **Reading the training curves.** The batched trainer steps B continuing
 lockstep replicas, so iteration i always samples the SAME rollout_len-
@@ -394,17 +379,13 @@ phase period, the policy improves in every loaded phase (e.g. the
 heaviest burst window trains -42,838 -> -34,508; the two empty-network
 phases are flat at ~-12k), phase-controlled improvement +5,013.
 
-metered_corridor's 18k engine-steps/s PPO row is scenario SHAPE, not a
-training-hardware artifact: at action_gap 5 an iteration carries only
-20,480 engine steps (vs 61,440 at the siblings' action_gap 15), and a
-round-5 retrain at the identical budget on the live TPU chip reproduced
-the per-iteration wall clock (120 iterations in 133 s vs the shipped
-curve's 180 s).  Both round-5 retrain candidates (PPO, and batched SAC
-at the same 600-iteration budget) were REFUSED by the same-protocol
-no-regress gate — the shipped checkpoints validate better — and are
-preserved next to the shipped dirs as
-`artifacts/zoo/ppo_agents_metered_corridor.candidate` and
-`artifacts/zoo/sac_agents_metered_corridor.candidate`.
+metered_corridor runs at action_gap 5, so an iteration carries only
+20,480 engine steps (vs 61,440 at the siblings' action_gap 15).  Both
+round-5 retrain candidates (PPO, and batched SAC at the same
+600-iteration budget) were REFUSED by the same-protocol no-regress gate
+— the shipped checkpoints validate better.  Training times are not
+listed: they were taken on the previous accelerator, and the trainers
+have not yet run on the H100.
 
 {curves}
 

@@ -1,5 +1,5 @@
-"""Profile the grid_50x50 batched step on TPU and aggregate device op
-times from the Chrome trace (docs/PERFORMANCE.md profiling workflow).
+"""Profile the grid_50x50 batched step on the accelerator and aggregate
+device op times from the Chrome trace.
 
 Run:  nohup python scripts/profile_grid.py > /tmp/profile_grid.log 2>&1 &
 """

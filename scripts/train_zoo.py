@@ -3,7 +3,7 @@
 Counterpart of the reference's rl/train_rl.py:35-247 (train, then
 evaluate RL vs rule-based vs no-control over randomized runs) and its
 shipped rl/{ppo,sac,...}_agents_<dataset> checkpoint zoos — built the
-TPU way: PPO trains with the batched attention-LSTM trainer (256
+batched way: PPO trains with the batched attention-LSTM trainer (256
 domain-randomized replicas in one XLA program), SAC through the host
 loop, and the checkpoints are exported in the PPOAgent/SACAgent format
 that rl.evaluate loads.
@@ -329,7 +329,7 @@ def train_sac_batched(dataset: str, action_gap: int, iterations: int = 300,
                       seed: int = 0, num_envs: int = 64, val_every: int = 25,
                       randomize_fraction: float = 0.75,
                       use_mesh: bool = False):
-    """SAC through the TPU-native batched trainer (rl/batched_sac.py):
+    """SAC through the batched trainer (rl/batched_sac.py):
     64 lockstep domain-randomized replicas + scanned updates give a
     ~20x gradient-step budget over the host loop in a fraction of the
     wall-clock — the round-3 fix for the underfit SAC zoo rows.
@@ -585,7 +585,7 @@ def main():
     p.add_argument("--ppo-iters", type=int, default=None)
     p.add_argument("--sac-episodes", type=int, default=None)
     p.add_argument("--sac-batched", action="store_true",
-                   help="train SAC with the TPU-native batched trainer "
+                   help="train SAC with the batched trainer "
                         "(rl/batched_sac.py) instead of the host loop")
     p.add_argument("--sac-iters", type=int, default=300,
                    help="batched-SAC training iterations (64 gradient "

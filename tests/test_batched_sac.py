@@ -1,4 +1,4 @@
-"""BatchedSACTrainer: TPU-native off-policy training (batched_sac.py).
+"""BatchedSACTrainer: batched off-policy training (batched_sac.py).
 
 Covers: a training iteration improves/updates state sanely, the replay
 ring wraps, export produces host-format checkpoints that the existing

@@ -271,7 +271,7 @@ def test_batched_ppo_trainer():
 @pytest.mark.xslow
 def test_batched_ppo_recurrent_randomized():
     """The reference's default attention-LSTM family trained through the
-    batched TPU path (PPO_backup.py:597-760 via rl/networks.py), with
+    batched path (PPO_backup.py:597-760 via rl/networks.py), with
     per-replica domain-randomized worlds (env_loader.py:160-424 analog)."""
     import jax.tree_util as jtu
 

@@ -3,13 +3,12 @@ implementation's trajectories (deterministic mode: binomial -> expectation)
 on bundled scenarios.
 
 Fixtures under tests/golden/*.npz are produced by scripts/gen_golden.py,
-which RUNS the reference at /root/reference with np.random.binomial
-patched to floor(n)*p.  The target in BASELINE.json is densities matching
+which RUNS the reference with np.random.binomial patched to
+floor(n)*p.  The target in BASELINE.json is densities matching
 to 1e-5; the engine's dtype staging actually achieves bit-exactness on
 these scenarios.
 """
 
-import json
 import os
 
 import numpy as np
@@ -17,77 +16,25 @@ import pytest
 
 import jax
 
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
-
-FIELDS = {
-    # field -> (mine attr, ref column offset relative to step t)
-    "inflow": ("inflow", 0),
-    "outflow": ("outflow", 0),
-    "num_pedestrians": ("num_peds", 0),
-    "density": ("density", 0),
-    "speed": ("speed", 0),
-    "travel_time": ("travel_time", 0),
-    "cumulative_inflow": ("cum_in", 0),
-    "cumulative_outflow": ("cum_out", 0),
-    # sending/receiving are stored at index t-1 during step t
-    # (node.py:178,206)
-    "sending_flow": ("sending", -1),
-    "receiving_flow": ("receiving", -1),
-}
+from pednstream_tpu.golden import (DATASET_FIXTURES, GOLDEN_DIR, TOLERANCE,
+                                   dataset_fixture_errors, fixture_names,
+                                   scenario_fixture_errors)
 
 
 def _available():
     if not os.path.isdir(GOLDEN_DIR):
         return []
-    return sorted(
-        f[:-4] for f in os.listdir(GOLDEN_DIR)
-        if f.endswith(".npz") and f not in ("delft.npz", "melbourne.npz")
-    )
+    return [f for f in fixture_names() if f not in DATASET_FIXTURES]
 
 
 @pytest.mark.parametrize("name", _available() or ["long_corridor"])
 def test_golden_parity(name, x64):
-    import jax.numpy as jnp
-    from pednstream_tpu import build_scenario
-    from pednstream_tpu.engine import simulate
-
     path = os.path.join(GOLDEN_DIR, f"{name}.npz")
     if not os.path.exists(path):
         pytest.skip(f"golden fixture {name} missing; run scripts/gen_golden.py")
-    g = np.load(path, allow_pickle=True)
-    meta = json.loads(str(g["meta"]))
-    adj = np.array(meta["adj"])
-    params = meta["params"]
-    od_flows = {
-        tuple(map(int, k.split("_"))): v for k, v in meta.get("od_flows", {}).items()
-    } or None
-
-    np.random.seed(params.get("seed", 42))
-    scn = build_scenario(
-        adj,
-        params,
-        origin_nodes=meta["origins"],
-        destination_nodes=meta.get("dests") or [],
-        od_flows=od_flows,
-        ftype=jnp.float64,
-        exact_parity=True,
-    )
-    link_keys = [f"{u}_{v}" for (u, v) in scn.topo.link_nodes.tolist()]
-    order = [link_keys.index(k) for k in list(g["link_keys"])]
-
-    state = scn.init_state(jax.random.PRNGKey(0))
-    T = params["simulation_steps"]
-    _, outs = simulate(scn, scn.engine_params, state, T - 1, stochastic=False, record=True)
-
-    tol = 1e-5  # BASELINE.json parity target (achieved: bit-exact)
-    for field, (attr, off) in FIELDS.items():
-        mine = np.asarray(getattr(outs, attr))[:, order]  # [T-1, E], row i = step i+1
-        if off == 0:
-            ref = g[field][:, 1:T].T
-        else:
-            ref = g[field][:, 0 : T - 1].T
-        err = np.abs(mine - ref).max()
-        assert err <= tol, f"{name}.{field}: max abs err {err}"
+    # BASELINE.json parity target (achieved: bit-exact)
+    for field, err in scenario_fixture_errors(name).items():
+        assert err <= TOLERANCE, f"{name}.{field}: max abs err {err}"
 
 
 @pytest.mark.slow
@@ -96,36 +43,16 @@ def test_golden_parity_realworld(dataset, x64):
     """Real-world networks (measured corridor lengths from
     edge_distances.pkl; melbourne adds activity_probability=0.5):
     bit-exact vs the reference over 199 steps."""
-    import jax.numpy as jnp
-    from pednstream_tpu.engine import simulate
-    from pednstream_tpu.generator import NetworkEnvGenerator
-
     path = os.path.join(GOLDEN_DIR, f"{dataset}.npz")
     if not os.path.exists(path):
         pytest.skip(f"{dataset} fixture missing; run scripts/gen_golden_realworld.py")
-    g = np.load(path, allow_pickle=True)
-    T = json.loads(str(g["meta"]))["steps"]
-
-    np.random.seed(42)
-    gen = NetworkEnvGenerator(ftype=jnp.float64, exact_parity=True)
-    scn = gen.create_network(dataset)
-    link_keys = [f"{u}_{v}" for (u, v) in scn.topo.link_nodes.tolist()]
-    order = [link_keys.index(k) for k in list(g["link_keys"])]
-
-    _, outs = simulate(scn, scn.engine_params, scn.init_state(jax.random.PRNGKey(0)),
-                       T - 1, stochastic=False, record=True)
-    for field, (attr, off) in FIELDS.items():
-        if field not in g:
-            continue
-        mine = np.asarray(getattr(outs, attr))[:, order]
-        ref = (g[field][:, 0 : T - 1] if off else g[field][:, 1:T]).T
-        err = np.abs(mine - ref).max()
-        assert err <= 1e-5, f"{dataset}.{field}: max abs err {err}"
+    for field, err in dataset_fixture_errors(dataset).items():
+        assert err <= TOLERANCE, f"{dataset}.{field}: max abs err {err}"
 
 
 def test_windowed_mode_semantics_jam_heavy(x64):
     """Windowed-history approximation error, quantified on a scenario
-    engineered to exceed the window (roadmap item 6 / VERDICT weak 7):
+    engineered to exceed the window:
     400 m links give tau_shockwave = 73 and pulsed demand drives the
     dynamic avg-tt tau to ~76, so both lookbacks clamp under H=32 and
     H=64.  The exact full-horizon run is the reference semantics (the

@@ -95,6 +95,28 @@ def test_link_sharded_bitexact_tiny(stochastic):
     _assert_states_bitequal(ref, out)
 
 
+@pytest.mark.parametrize("path", ["state", "simulate", "hybrid"])
+def test_link_sharding_rejects_indivisible_link_count(path):
+    """E = 8 directed links do not divide over a 3-device link axis: every
+    entry point says so instead of failing inside XLA."""
+    from pednstream_tpu.parallel import (make_hybrid_sharded_simulate,
+                                         make_mesh_2d, shard_hybrid_state)
+
+    scn = _tiny_controller_scenario()
+    assert scn.n_links == 8
+    with pytest.raises(ValueError, match="do not divide over the 3-device"):
+        if path == "state":
+            shard_link_state(scn.init_state(jax.random.PRNGKey(0)),
+                             make_mesh(3, axis="link"))
+        elif path == "simulate":
+            make_link_sharded_simulate(scn, make_mesh(3, axis="link"), 2)
+        else:
+            mesh2d = make_mesh_2d(2, 3)
+            states = jax.vmap(scn.init_state)(
+                jax.random.split(jax.random.PRNGKey(0), 2))
+            shard_hybrid_state(states, mesh2d)
+
+
 def test_link_sharded_step_interactive_control():
     """make_link_sharded_step: the RL-control stepping path — mutate the
     gate surface between sharded steps (as a controller would), outputs
@@ -197,7 +219,7 @@ def _grid_adjacency(n: int) -> np.ndarray:
 @pytest.mark.xslow  # ~40s: builds + compiles a 108k-link network
 def test_link_sharded_100k_link_grid():
     """The blueprint's motivating scale (SURVEY §2.6: '10k+-link
-    networks'; VERDICT r4 asks ~100k): a synthetic 165x165 grid with
+    networks', here at ~100k): a synthetic 165x165 grid with
     108,240 directed links, sharded 8 ways.
 
     Checks, in order of importance: (1) the rings are PHYSICALLY

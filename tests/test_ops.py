@@ -1,8 +1,7 @@
-"""N-curve read kernels: single-pass diffusion and the fused Pallas
-kernel agree with the straightforward per-lag gathers."""
+"""N-curve history reads: the single-pass forms agree with the
+straightforward per-lag gathers."""
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
@@ -38,34 +37,6 @@ def test_diffusion_single_pass():
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-def test_fused_history_reads_interpret():
-    from pednstream_tpu.ops import fused_history_reads
-
-    ring, base, coefs = _data(E=70, H=40)  # E not a multiple of tile
-    H, E = ring.shape
-    rng = np.random.default_rng(1)
-    ci_ring = jnp.asarray(rng.uniform(0, 100, ring.shape).astype(np.float32))
-    co_ring = jnp.asarray(rng.uniform(0, 100, ring.shape).astype(np.float32))
-    idx_ci = jnp.asarray(rng.integers(0, H, E).astype(np.int32))
-    idx_co = jnp.asarray(rng.integers(-3, H, E).astype(np.int32))
-
-    ci, co, diff = fused_history_reads(
-        ci_ring, co_ring, ring, idx_ci, idx_co, base, coefs, H,
-        tile=32, interpret=True,
-    )
-    want_ci = np.take_along_axis(
-        np.asarray(ci_ring), np.asarray(idx_ci)[None, :] % H, axis=0)[0]
-    np.testing.assert_allclose(np.asarray(ci), want_ci, rtol=1e-6)
-    want_co = np.where(
-        np.asarray(idx_co) >= 0,
-        np.take_along_axis(np.asarray(co_ring), np.asarray(idx_co)[None, :] % H, axis=0)[0],
-        0.0,
-    )
-    np.testing.assert_allclose(np.asarray(co), want_co, rtol=1e-6)
-    want_diff = _naive_diffusion(np.asarray(ring), np.asarray(base), np.asarray(coefs), H)
-    np.testing.assert_allclose(np.asarray(diff), want_diff, rtol=1e-5)
-
-
 def test_fast_vs_parity_diffusion_in_engine():
     """Full simulation: fast single-pass diffusion matches the parity
     4-read path to floating tolerance."""
@@ -88,41 +59,6 @@ def test_fast_vs_parity_diffusion_in_engine():
                         80, stochastic=False, record=False)
         runs[mode] = np.asarray(f.density)
     np.testing.assert_allclose(runs[True], runs[False], atol=5e-3)
-
-
-@pytest.mark.slow
-def test_pallas_engine_path_identical():
-    """The fused Pallas history kernel wired into the engine
-    (scn.use_pallas) reproduces the XLA one-hot path bit-for-bit over a
-    full stochastic run, including under vmap (interpret mode on CPU)."""
-    from pednstream_tpu import build_scenario, load_config
-    from pednstream_tpu.engine import simulate, step_fn
-
-    cfg = load_config("data/butterfly_scC/sim_params.yaml")
-    cfg["params"]["seed"] = 3
-    args = (cfg["adjacency_matrix"], cfg["params"],
-            cfg["origin_nodes"], cfg["destination_nodes"])
-    scn_a = build_scenario(*args, history_window=64)
-    scn_b = build_scenario(*args, history_window=64,
-                           use_pallas=True, pallas_interpret=True)
-
-    fa, _ = simulate(scn_a, scn_a.engine_params,
-                     scn_a.init_state(jax.random.PRNGKey(0)), 120,
-                     stochastic=True, record=False)
-    fb, _ = simulate(scn_b, scn_b.engine_params,
-                     scn_b.init_state(jax.random.PRNGKey(0)), 120,
-                     stochastic=True, record=False)
-    for name in ("density", "cum_in", "cum_out", "travel_time", "num_peds"):
-        a, b = np.asarray(getattr(fa, name)), np.asarray(getattr(fb, name))
-        assert np.abs(a - b).max() == 0.0, name
-
-    # batched replicas through the kernel
-    states = jax.vmap(scn_b.init_state)(jax.random.split(jax.random.PRNGKey(1), 4))
-    step = jax.jit(jax.vmap(
-        lambda s: step_fn(scn_b, scn_b.engine_params, s,
-                          stochastic=True, record=False)[0]))
-    out = step(states)
-    assert out.density.shape[0] == 4
 
 
 def test_boundary_and_diffusion_reads():

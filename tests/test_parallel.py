@@ -64,6 +64,13 @@ def test_make_mesh_and_shard_batch(core):
     assert len(states.t.sharding.device_set) == 8
 
 
+def test_make_mesh_raises_on_too_few_devices():
+    n = len(jax.devices())
+    with pytest.raises(ValueError, match=f"need {n + 1} devices, have {n}"):
+        make_mesh(n + 1)
+    assert make_mesh(n).devices.shape == (n,)
+
+
 @pytest.mark.slow
 def test_sharded_env_step_matches_unsharded(core):
     mesh = make_mesh(8)

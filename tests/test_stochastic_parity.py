@@ -90,11 +90,11 @@ def _ref_runs():
     # claims on the shipped configuration, so exact rides the xslow tier
     pytest.param("exact", "threefry2x32", marks=pytest.mark.xslow),
     pytest.param("fast", "threefry2x32", marks=pytest.mark.slow),
-    # unsafe_rbg is the bench/trainer fast path on TPU: random bits come
-    # from the hardware RngBitGenerator op instead of ~15 VPU ops/word of
-    # threefry (live-chip: melbourne 725k -> 898k env-steps/s).  "unsafe"
-    # refers to split/fold_in key-derivation rigor, not bit quality; this
-    # case pins its distributional parity with the reference.
+    # unsafe_rbg draws its bits from XLA's RngBitGenerator op instead of
+    # threefry; whether it is faster on the GPU is an open question.
+    # "unsafe" refers to split/fold_in key-derivation rigor, not bit
+    # quality; this case pins its distributional parity with the
+    # reference.
     pytest.param("fast", "unsafe_rbg", marks=pytest.mark.slow),
 ])
 def test_stochastic_distribution_parity(binomial_mode, prng_impl):
